@@ -6,10 +6,10 @@ set -euo pipefail
 cd "$(dirname "$0")/.."
 
 # golden-parity (host, float64):
-python -m coulomb_gmg_tpu.cli examples/gaussian-charges.prm --cpu --cycles 6
+python -m coulomb_gmg.cli examples/gaussian-charges.prm --cpu --cycles 6
 
-# accelerator (float32, Chebyshev GMG):
-# python -m coulomb_gmg_tpu.cli examples/gaussian-charges.prm
+# GPU (float32, Chebyshev GMG):
+# python -m coulomb_gmg.cli examples/gaussian-charges.prm
 
 # the reference's PUBLISHED production scaling study (plain-Kelly marking,
 # 1e-8 tolerance; per-cycle cell counts reproduce Plotting/ncells_per_atom.dat
@@ -17,5 +17,6 @@ python -m coulomb_gmg_tpu.cli examples/gaussian-charges.prm --cpu --cycles 6
 # JAX_ENABLE_X64=1 python tools/bench_scaling.py --sizes 20 --cycles 5 \
 #     --production --dtype float64 --timers
 
-# driver-captured headline benchmark (TPU-hybrid with f64 host fallback):
+# headline benchmark on one GPU (fails without one), and the smoke test:
 # python bench.py
+# python chip_smoke.py

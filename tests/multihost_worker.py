@@ -33,10 +33,10 @@ import numpy as np          # noqa: E402
 import jax                  # noqa: E402
 
 jax.config.update("jax_enable_x64", True)
-# cross-process CPU collectives ride gloo (the CPU stand-in for ICI/DCN)
+# cross-process CPU collectives ride gloo (the CPU stand-in for NCCL)
 jax.config.update("jax_cpu_collectives_implementation", "gloo")
 
-from coulomb_gmg_tpu.utils.platform import init_distributed  # noqa: E402
+from coulomb_gmg.utils.platform import init_distributed  # noqa: E402
 
 init_distributed(coordinator=f"127.0.0.1:{port}", num_processes=nproc,
                  process_id=pid)
@@ -63,7 +63,7 @@ def poisson_7pt(m: int):
 
 def main():
     from jax.sharding import Mesh
-    from coulomb_gmg_tpu.parallel.sharded import (
+    from coulomb_gmg.parallel.sharded import (
         ShardedCSR, sharded_diag, make_sharded_solver, shard_vector,
         put_blocks)
 
@@ -88,11 +88,11 @@ def main():
     x_local = np.concatenate(
         [np.asarray(s.data).ravel() for s in xb.addressable_shards])
     import jax.numpy as jnp
-    from coulomb_gmg_tpu.parallel.sharded import shard_map
+    from jax import shard_map
     from jax.sharding import PartitionSpec as P
     ssum = jax.jit(shard_map(
         lambda a: jax.lax.psum(jnp.sum(a * a), "shard"),
-        mesh=mesh, in_specs=P("shard"), out_specs=P(), check_rep=False))
+        mesh=mesh, in_specs=P("shard"), out_specs=P(), check_vma=False))
     checksum = float(ssum(xb))
 
     # ---- stage 2: the FULL ShardedGMG (every MG level row-partitioned,
@@ -102,11 +102,11 @@ def main():
     # (src/step-50.cc:722-731, run.sh:13).  The problem is built
     # deterministically and replicated per process (host topology work);
     # only the SOLVE state is distributed.
-    from coulomb_gmg_tpu.config import golden_gaussian_config
-    from coulomb_gmg_tpu.driver import Simulation
-    from coulomb_gmg_tpu.models.atoms import two_atom_pair
-    from coulomb_gmg_tpu.utils.logging import Pcout
-    from coulomb_gmg_tpu.parallel.sharded_gmg import ShardedGMG
+    from coulomb_gmg.config import golden_gaussian_config
+    from coulomb_gmg.driver import Simulation
+    from coulomb_gmg.models.atoms import two_atom_pair
+    from coulomb_gmg.utils.logging import Pcout
+    from coulomb_gmg.parallel.sharded_gmg import ShardedGMG
 
     cfg = golden_gaussian_config(n_adaptive_cycles=2, flag_output_time=False,
                                  mesh_size_h=0.5, vacuum_repetitions=4)

@@ -5,10 +5,10 @@ so 2D always takes the analytic-RHS path, tests_2D/step-16.mpirun=1.output:2).""
 import numpy as np
 import pytest
 
-from coulomb_gmg_tpu.config import Config
-from coulomb_gmg_tpu.driver import Simulation
-from coulomb_gmg_tpu.io.lammps import empty_atom_data
-from coulomb_gmg_tpu.utils.logging import Pcout
+from coulomb_gmg.config import Config
+from coulomb_gmg.driver import Simulation
+from coulomb_gmg.io.lammps import empty_atom_data
+from coulomb_gmg.utils.logging import Pcout
 
 
 def quiet():
@@ -55,7 +55,7 @@ def test_jacobi_preconditioner_2d():
 
 
 def empty_atom_data2d():
-    from coulomb_gmg_tpu.io.lammps import AtomData
+    from coulomb_gmg.io.lammps import AtomData
     return AtomData(np.zeros((0, 2)), np.zeros(0), np.zeros(0, np.int32),
                     np.zeros(2), np.zeros(2))
 
@@ -64,8 +64,8 @@ def test_grid_output_debug_gnuplot(tmp_path):
     """grid_output_debug analogue (src/step-50.cc:310-375): two .gp scripts
     with cell outlines + atom-list / presence labels."""
     import os
-    from coulomb_gmg_tpu.mesh.forest import Forest
-    from coulomb_gmg_tpu.io.gnuplot import grid_output_debug
+    from coulomb_gmg.mesh.forest import Forest
+    from coulomb_gmg.io.gnuplot import grid_output_debug
 
     f = Forest.uniform(2, 4, np.zeros(2), 0.25)
     mask = np.zeros((f.n_cells, 3), dtype=bool)

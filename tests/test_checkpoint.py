@@ -7,10 +7,10 @@ import os
 import numpy as np
 import pytest
 
-from coulomb_gmg_tpu.config import golden_gaussian_config
-from coulomb_gmg_tpu.driver import Simulation
-from coulomb_gmg_tpu.models.atoms import two_atom_pair
-from coulomb_gmg_tpu.utils.logging import Pcout
+from coulomb_gmg.config import golden_gaussian_config
+from coulomb_gmg.driver import Simulation
+from coulomb_gmg.models.atoms import two_atom_pair
+from coulomb_gmg.utils.logging import Pcout
 
 
 def _small(**kw):

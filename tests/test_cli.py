@@ -13,7 +13,7 @@ import pytest
 
 def test_cli_runs_prm_and_prints_reference_schema(capsys, tmp_path,
                                                   monkeypatch):
-    from coulomb_gmg_tpu.cli import main
+    from coulomb_gmg.cli import main
 
     prm = tmp_path / "mini.prm"
     prm.write_text("""
@@ -49,7 +49,7 @@ end
 
 
 def test_cli_rejects_bad_selection(tmp_path):
-    from coulomb_gmg_tpu.cli import main
+    from coulomb_gmg.cli import main
     prm = tmp_path / "bad.prm"
     prm.write_text("""
 subsection Solver input data

@@ -7,9 +7,9 @@ so this pins the MACHINERY, not app behavior."""
 import numpy as np
 import pytest
 
-from coulomb_gmg_tpu.mesh.forest import Forest, corner_offsets
-from coulomb_gmg_tpu.adapt.transfer import (coarsen_map, coarsen_solution,
-                                            coarsen_cell_mask)
+from coulomb_gmg.mesh.forest import Forest, corner_offsets
+from coulomb_gmg.adapt.transfer import (coarsen_map, coarsen_solution,
+                                        coarsen_cell_mask)
 
 
 def _cells_set(f):

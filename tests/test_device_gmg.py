@@ -1,9 +1,9 @@
 """StencilGMG (chip-built operators, matrix-free system matvec) vs the
-host-assembled TpuGMG oracle on the same adaptive GaussianCharges problem.
+host-assembled FusedGMG oracle on the same adaptive GaussianCharges problem.
 
 The device-operator path never assembles a CSR: level operators come from
 the stencil table (ops/stencil.py), the outer-CG matvec runs cellwise
-(solver/tpu_gmg.py:cellwise_mv).  It must reproduce the host path's
+(solver/fused_gmg.py:cellwise_mv).  It must reproduce the host path's
 solutions, iteration counts (within 1), and converged residuals.
 Reference contract: SolverCG + GMG, src/step-50.cc:938-1017; system
 assembly semantics src/step-50.cc:735-833.
@@ -12,12 +12,12 @@ assembly semantics src/step-50.cc:735-833.
 import numpy as np
 import pytest
 
-from coulomb_gmg_tpu.config import golden_gaussian_config
-from coulomb_gmg_tpu.driver import Simulation
-from coulomb_gmg_tpu.models.atoms import two_atom_pair
-from coulomb_gmg_tpu.utils.logging import Pcout
-from coulomb_gmg_tpu.solver.device_gmg import (StencilGMG,
-                                               solve_refined_matfree)
+from coulomb_gmg.config import golden_gaussian_config
+from coulomb_gmg.driver import Simulation
+from coulomb_gmg.models.atoms import two_atom_pair
+from coulomb_gmg.utils.logging import Pcout
+from coulomb_gmg.solver.device_gmg import (StencilGMG,
+                                           solve_refined_matfree)
 
 
 @pytest.fixture(scope="module")
@@ -51,8 +51,8 @@ def test_matfree_matvec_matches_assembled(small_sim):
 def test_stencil_solve_matches_host(small_sim):
     sim = small_sim
     rhs = np.asarray(sim.rhs)
-    from coulomb_gmg_tpu.solver.tpu_gmg import TpuGMG
-    g_ref = TpuGMG(sim.gmg, sim.A, sim.forest, device=None, dtype=sim.dtype)
+    from coulomb_gmg.solver.fused_gmg import FusedGMG
+    g_ref = FusedGMG(sim.gmg, sim.A, sim.forest, device=None, dtype=sim.dtype)
     x_ref, k_ref, res0_ref, _ = g_ref.solve_fused(rhs, rtol=1e-8)
     g = _stencil(sim)
     x, k, res0, res = g.solve(rhs, rtol=1e-8)
@@ -69,7 +69,7 @@ def test_stencil_device_matvec_matches_host64(small_sim):
     """The device cellwise_mv (through the fused tree's sys operands) ==
     the host f64 matrix-free matvec."""
     import jax.numpy as jnp
-    from coulomb_gmg_tpu.solver.tpu_gmg import cellwise_mv
+    from coulomb_gmg.solver.fused_gmg import cellwise_mv
     sim = small_sim
     g = _stencil(sim)
     rng = np.random.default_rng(1)
@@ -116,7 +116,7 @@ def test_refined_device_defect(small_sim):
     """Device-resident IR (double-f32 defect on device, solution
     accumulated as a device pair) reaches the reference's 1e-8*||b|| as a
     TRUE residual, verified against the host f64 matrix-free operator."""
-    from coulomb_gmg_tpu.solver.device_gmg import solve_refined_device
+    from coulomb_gmg.solver.device_gmg import solve_refined_device
     sim = small_sim
     rhs = np.asarray(sim.rhs)
     g = _stencil(sim)

@@ -9,10 +9,10 @@ Kelly estimator without a density pull."""
 import numpy as np
 import pytest
 
-from coulomb_gmg_tpu.config import golden_gaussian_config
-from coulomb_gmg_tpu.driver import Simulation
-from coulomb_gmg_tpu.models.atoms import two_atom_pair
-from coulomb_gmg_tpu.utils.logging import Pcout
+from coulomb_gmg.config import golden_gaussian_config
+from coulomb_gmg.driver import Simulation
+from coulomb_gmg.models.atoms import two_atom_pair
+from coulomb_gmg.utils.logging import Pcout
 
 
 def _run(**overrides):
@@ -26,7 +26,7 @@ def _run(**overrides):
 
 @pytest.mark.parametrize("dtype", ["float64", "float32"])
 def test_device_ops_matches_host_path(dtype):
-    kw = dict(dtype=dtype, solver_backend="tpu_cg",
+    kw = dict(dtype=dtype, solver_backend="bucketed_cg",
               estimator_volume_term=False)
     ref, _ = _run(device_operators="off", **kw)
     dev, sim = _run(device_operators="on", **kw)
@@ -49,7 +49,7 @@ def test_device_ops_true_residual_f32():
     """f32 device-operator run meets the reference's 1e-8*||b|| as a TRUE
     float64 residual through matrix-free IR (src/step-50.cc:942)."""
     res, sim = _run(device_operators="on", dtype="float32",
-                    solver_backend="tpu_cg", estimator_volume_term=False,
+                    solver_backend="bucketed_cg", estimator_volume_term=False,
                     n_adaptive_cycles=2)
     g = sim._stencil_gmg
     r = np.asarray(sim.rhs, np.float64) - g.host_matvec64(
@@ -57,7 +57,7 @@ def test_device_ops_true_residual_f32():
         if len(sim.solution) == g.n else sim.solution)
     # solution has constrained rows distributed; rebuild the CG iterate
     # residual instead: solve once more from the stored rhs
-    from coulomb_gmg_tpu.solver.device_gmg import solve_refined_matfree
+    from coulomb_gmg.solver.device_gmg import solve_refined_matfree
     x, k, res0, resf = solve_refined_matfree(g, np.asarray(sim.rhs),
                                              rtol=1e-8)
     assert resf <= 1e-8 * np.linalg.norm(sim.rhs) * 1.01
@@ -68,10 +68,10 @@ def test_device_ops_production_trajectory_8_atoms():
     operators, no CSR anywhere) reproduces the reference's PUBLISHED
     per-cycle cell counts exactly (Plotting/ncells_per_atom.dat:6) with
     mesh-independent CG counts — the hybrid-bench validity gate."""
-    from coulomb_gmg_tpu.config import production_scaling_config
-    from coulomb_gmg_tpu.models.atoms import nacl_lattice
+    from coulomb_gmg.config import production_scaling_config
+    from coulomb_gmg.models.atoms import nacl_lattice
     cfg = production_scaling_config(1, dtype="float32",
-                                    solver_backend="tpu_cg",
+                                    solver_backend="bucketed_cg",
                                     device_operators="on")
     sim = Simulation(cfg, atoms=nacl_lattice(1), pcout=Pcout(enabled=False))
     res = sim.run()

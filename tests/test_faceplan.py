@@ -5,10 +5,10 @@ incrementally-updated plan must contain EXACTLY the same face set."""
 import numpy as np
 import pytest
 
-from coulomb_gmg_tpu.mesh.forest import Forest
-from coulomb_gmg_tpu.adapt.estimator import (build_face_plan,
-                                             update_face_plan)
-from coulomb_gmg_tpu.adapt.transfer import old_cell_of_new
+from coulomb_gmg.mesh.forest import Forest
+from coulomb_gmg.adapt.estimator import (build_face_plan,
+                                         update_face_plan)
+from coulomb_gmg.adapt.transfer import old_cell_of_new
 
 
 def _canon(plan):
@@ -42,10 +42,10 @@ def test_incremental_matches_full_rebuild(dim, reps):
 def test_incremental_through_driver_matches_rebuild():
     """After a 3-cycle adaptive run the driver's cached plan equals a
     fresh rebuild on the final mesh."""
-    from coulomb_gmg_tpu.config import golden_gaussian_config
-    from coulomb_gmg_tpu.driver import Simulation
-    from coulomb_gmg_tpu.models.atoms import two_atom_pair
-    from coulomb_gmg_tpu.utils.logging import Pcout
+    from coulomb_gmg.config import golden_gaussian_config
+    from coulomb_gmg.driver import Simulation
+    from coulomb_gmg.models.atoms import two_atom_pair
+    from coulomb_gmg.utils.logging import Pcout
 
     cfg = golden_gaussian_config(n_adaptive_cycles=3, flag_output_time=False,
                                  mesh_size_h=0.5, vacuum_repetitions=4)

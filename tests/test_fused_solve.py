@@ -1,4 +1,4 @@
-"""Fused single-executable GMG-CG (solver/tpu_gmg.py:_fused_gmg_cg) vs the
+"""Fused single-executable GMG-CG (solver/fused_gmg.py:_fused_gmg_cg) vs the
 host-orchestrated block-wise CG: identical operators, identical math — the
 iteration counts and solutions must agree.  This is the production
 accelerator solve path (one dispatch per solve); here it runs on the CPU
@@ -8,10 +8,10 @@ GMG preconditioning, src/step-50.cc:938-1017."""
 import numpy as np
 import pytest
 
-from coulomb_gmg_tpu.config import golden_gaussian_config
-from coulomb_gmg_tpu.driver import Simulation
-from coulomb_gmg_tpu.models.atoms import two_atom_pair
-from coulomb_gmg_tpu.utils.logging import Pcout
+from coulomb_gmg.config import golden_gaussian_config
+from coulomb_gmg.driver import Simulation
+from coulomb_gmg.models.atoms import two_atom_pair
+from coulomb_gmg.utils.logging import Pcout
 
 
 @pytest.fixture(scope="module")
@@ -24,9 +24,9 @@ def small_sim():
 
 
 def _make(sim, **kw):
-    from coulomb_gmg_tpu.solver.tpu_gmg import TpuGMG
+    from coulomb_gmg.solver.fused_gmg import FusedGMG
     kw.setdefault("use_dst", True)
-    return TpuGMG(sim.gmg, sim.A, sim.forest, device=None, dtype=sim.dtype,
+    return FusedGMG(sim.gmg, sim.A, sim.forest, device=None, dtype=sim.dtype,
                   **kw)
 
 
@@ -50,7 +50,7 @@ def test_fused_matches_driver_solution(small_sim):
     rhs = np.asarray(sim.rhs)
     g = _make(sim)
     x_f, k_f, _, _ = g.solve_fused(rhs, rtol=1e-8)
-    from coulomb_gmg_tpu.fem.constraints import distribute
+    from coulomb_gmg.fem.constraints import distribute
     x_d = np.asarray(distribute(sim.constraints, x_f))
     ref = np.asarray(sim.solution)
     assert np.linalg.norm(x_d - ref) / np.linalg.norm(ref) < 1e-5
@@ -79,21 +79,21 @@ def test_fused_coarse_cg_fallback(small_sim):
 
 
 def test_level_delta_ship_across_cycles(small_sim):
-    """Cross-cycle operator shipping: a second TpuGMG built from the same
+    """Cross-cycle operator shipping: a second FusedGMG built from the same
     GMG hierarchy (prev=) must REUSE unchanged level device arrays (zero
     traffic) and still solve identically."""
     sim = small_sim
     rhs = np.asarray(sim.rhs)
     g1 = _make(sim)
-    from coulomb_gmg_tpu.solver.tpu_gmg import TpuGMG
-    g2 = TpuGMG(sim.gmg, sim.A, sim.forest, device=None, dtype=sim.dtype,
+    from coulomb_gmg.solver.fused_gmg import FusedGMG
+    g2 = FusedGMG(sim.gmg, sim.A, sim.forest, device=None, dtype=sim.dtype,
                 use_dst=True, host_cache=None, prev=g1)
     # identical host ELL arrays are only guaranteed through the host cache;
     # with a shared cache everything is reused
     hc = {}
-    ga = TpuGMG(sim.gmg, sim.A, sim.forest, device=None, dtype=sim.dtype,
+    ga = FusedGMG(sim.gmg, sim.A, sim.forest, device=None, dtype=sim.dtype,
                 use_dst=True, host_cache=hc)
-    gb = TpuGMG(sim.gmg, sim.A, sim.forest, device=None, dtype=sim.dtype,
+    gb = FusedGMG(sim.gmg, sim.A, sim.forest, device=None, dtype=sim.dtype,
                 use_dst=True, host_cache=hc, prev=ga)
     reused, delta, packed = gb._lvl_ship_stats
     assert reused > 0 and packed == 0, gb._lvl_ship_stats

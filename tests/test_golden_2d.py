@@ -19,10 +19,10 @@ hyper_cube+refine_global(4)).
 import numpy as np
 import pytest
 
-from coulomb_gmg_tpu.config import Config
-from coulomb_gmg_tpu.driver import Simulation
-from coulomb_gmg_tpu.io.lammps import AtomData
-from coulomb_gmg_tpu.utils.logging import Pcout
+from coulomb_gmg.config import Config
+from coulomb_gmg.driver import Simulation
+from coulomb_gmg.io.lammps import AtomData
+from coulomb_gmg.utils.logging import Pcout
 
 
 def _empty(dim):

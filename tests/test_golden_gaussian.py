@@ -18,9 +18,9 @@ import pytest
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 from golden import parse_golden, GOLDEN_GAUSSIAN
 
-from coulomb_gmg_tpu.config import golden_gaussian_config
-from coulomb_gmg_tpu.driver import Simulation
-from coulomb_gmg_tpu.models.atoms import two_atom_pair
+from coulomb_gmg.config import golden_gaussian_config
+from coulomb_gmg.driver import Simulation
+from coulomb_gmg.models.atoms import two_atom_pair
 
 # the full 6-cycle golden trajectory is the central fidelity claim — it is
 # what CI checks by default; set GOLDEN_CYCLES to shorten during iteration.

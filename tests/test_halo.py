@@ -1,6 +1,6 @@
 """Owned/ghost halo exchange (parallel/sharded.py:HaloPlan).
 
-The TPU-native equivalent of deal.II's locally_owned/locally_relevant
+The JAX equivalent of deal.II's locally_owned/locally_relevant
 IndexSets + Trilinos ghost import (src/step-50.cc:653-657, 722-731): each
 device receives ONLY the ghost entries its operator rows read, via one
 all_to_all, instead of replicating the whole vector (all_gather).  Pinned
@@ -13,7 +13,7 @@ import jax
 import jax.numpy as jnp
 from jax.sharding import Mesh, PartitionSpec as P
 
-from coulomb_gmg_tpu.parallel.sharded import (
+from coulomb_gmg.parallel.sharded import (
     ShardedCSR, HaloPlan, halo_import, sharded_diag, make_sharded_solver,
     shard_vector, put_blocks, shard_map, round_up)
 
@@ -58,7 +58,7 @@ def test_halo_spmv_matches_scipy(mesh8):
 
     fn = jax.jit(shard_map(mv, mesh=mesh8,
                            in_specs=(P("shard"),) * 5,
-                           out_specs=P("shard"), check_rep=False))
+                           out_specs=P("shard"), check_vma=False))
     y = np.asarray(fn(
         put_blocks(x.reshape(D, -1), mesh8),
         put_blocks(A.rows_local, mesh8),

@@ -1,7 +1,7 @@
-"""Unit tests for the TPU hot-path kernels (ELL SpMV, Pallas density).
+"""Unit tests for the hot-path kernels (ELL SpMV, density, exact
+gradient, energy-norm error).
 
-Run on CPU; Pallas kernels in interpret mode.  The reference's analogous
-coverage is the A/B RHS-norm comparison in
+The reference's analogous coverage is the A/B RHS-norm comparison in
 tests/test_with_optimal_parameters.cc:196-227 (optimized vs brute force).
 """
 
@@ -19,7 +19,7 @@ def _random_csr(n, density, seed=0):
 
 
 def test_ell_matches_scipy():
-    from coulomb_gmg_tpu.ops.ell import ELL, ell_matvec
+    from coulomb_gmg.ops.ell import ELL, ell_matvec
     A = _random_csr(513, 0.02)
     e = ELL.from_csr(A.indptr, A.indices, A.data)
     x = np.random.default_rng(1).standard_normal(513)
@@ -30,7 +30,7 @@ def test_ell_matches_scipy():
 
 
 def test_ell_row_padding_and_bucket():
-    from coulomb_gmg_tpu.ops.ell import ELL, ell_matvec
+    from coulomb_gmg.ops.ell import ELL, ell_matvec
     A = _random_csr(100, 0.05, seed=2)
     e = ELL.from_csr(A.indptr, A.indices, A.data, pad_rows_to=128,
                      pad_k_to=32)
@@ -42,40 +42,33 @@ def test_ell_row_padding_and_bucket():
     np.testing.assert_allclose(y[100:], 0.0)
 
 
-def test_ell_pallas_interpret_matches():
-    from coulomb_gmg_tpu.ops.ell import ELL, ell_matvec_pallas
-    A = _random_csr(512, 0.02, seed=3)
-    e = ELL.from_csr(A.indptr, A.indices, A.data.astype(np.float32))
-    x = np.random.default_rng(3).standard_normal(512).astype(np.float32)
-    y = np.asarray(ell_matvec_pallas(jnp.asarray(e.cols),
-                                     jnp.asarray(e.vals), jnp.asarray(x),
-                                     block_rows=128, interpret=True))
-    np.testing.assert_allclose(y, (A @ x).astype(np.float32), rtol=2e-5,
-                               atol=1e-5)
-
-
 def test_pallas_density_matches_reference_formula():
-    from coulomb_gmg_tpu.ops.pallas_density import density_pallas
-    from coulomb_gmg_tpu.models.problems import charge_density
+    """The brute-force (no locality) density — the separable
+    tensor-product path — against the reference formula at every
+    quadrature point (include/step_50.h charge density)."""
+    from coulomb_gmg.mesh.forest import Forest
+    from coulomb_gmg.ops.density import compute_density, cell_quad_points
+    from coulomb_gmg.ops.q1 import element_tables
+    from coulomb_gmg.models.problems import charge_density
     rng = np.random.default_rng(4)
-    P, A = 300, 33
-    pts = rng.uniform(-2, 2, (P, 3))
-    pos = rng.uniform(-1, 1, (A, 3))
-    q = rng.choice([-1.0, 1.0], A)
+    f = Forest.uniform(3, 4, np.full(3, -2.0), 1.0)
+    tab = element_tables(3, 1, 3)
+    pos = rng.uniform(-1, 1, (33, 3))
+    q = rng.choice([-1.0, 1.0], 33)
     r_c = 0.5
+    pts = cell_quad_points(f, tab.points)
     ref = np.asarray(charge_density(jnp.asarray(pts), jnp.asarray(pos),
                                     jnp.asarray(q), r_c))
-    got = np.asarray(density_pallas(pts, pos, q, r_c, p_tile=128,
-                                    a_tile=128, interpret=True))
-    np.testing.assert_allclose(got, ref, rtol=5e-4, atol=1e-5)
+    got = compute_density(f, tab.points, pos, q, r_c)
+    np.testing.assert_allclose(got, ref, rtol=1e-12, atol=1e-14)
 
 
 def test_spatial_hash_lists_match_dense_mask():
     """ops/neighbors.py must reproduce the dense vertex-criterion mask
     (the A/B idiom of tests/test_with_optimal_parameters.cc:196-227)."""
-    from coulomb_gmg_tpu.mesh.forest import Forest
-    from coulomb_gmg_tpu.ops.density import atom_masks
-    from coulomb_gmg_tpu.ops.neighbors import atom_lists
+    from coulomb_gmg.mesh.forest import Forest
+    from coulomb_gmg.ops.density import atom_masks
+    from coulomb_gmg.ops.neighbors import atom_lists
 
     rng = np.random.default_rng(7)
     f = Forest.uniform(3, 6, np.zeros(3), 0.5)
@@ -96,10 +89,10 @@ def test_spatial_hash_lists_match_dense_mask():
 
 
 def test_density_from_lists_matches_dense():
-    from coulomb_gmg_tpu.mesh.forest import Forest
-    from coulomb_gmg_tpu.ops.density import (atom_masks, compute_density)
-    from coulomb_gmg_tpu.ops.neighbors import atom_lists
-    from coulomb_gmg_tpu.ops.q1 import element_tables
+    from coulomb_gmg.mesh.forest import Forest
+    from coulomb_gmg.ops.density import (atom_masks, compute_density)
+    from coulomb_gmg.ops.neighbors import atom_lists
+    from coulomb_gmg.ops.q1 import element_tables
 
     rng = np.random.default_rng(8)
     f = Forest.uniform(3, 5, np.zeros(3), 0.4)
@@ -119,12 +112,12 @@ def test_dst_coarse_solver_exact():
     (it replaces MGCoarseGridIterativeSolver, src/step-50.cc:962-967)."""
     import jax
     jax.config.update("jax_enable_x64", True)
-    from coulomb_gmg_tpu.mesh.forest import Forest
-    from coulomb_gmg_tpu.fem.assembly import build_plan, assemble
-    from coulomb_gmg_tpu.fem.integrals import stiffness_cells
-    from coulomb_gmg_tpu.ops.q1 import element_tables
-    from coulomb_gmg_tpu.ops.dst import DSTPoisson
-    from coulomb_gmg_tpu.solver.multigrid import level_constraints
+    from coulomb_gmg.mesh.forest import Forest
+    from coulomb_gmg.fem.assembly import build_plan, assemble
+    from coulomb_gmg.fem.integrals import stiffness_cells
+    from coulomb_gmg.ops.q1 import element_tables
+    from coulomb_gmg.ops.dst import DSTPoisson
+    from coulomb_gmg.solver.multigrid import level_constraints
 
     m = 6
     f = Forest.uniform(3, m, np.zeros(3), 1.0 / m)
@@ -159,12 +152,12 @@ def test_dst_coarse_solver_exact():
 
 
 def test_pallas_density_cells_matches_compute_density():
-    """The production brute-force Pallas path (ops/density.py wiring):
-    device-built points, fixed-size blocks, far-away padding cells."""
-    from coulomb_gmg_tpu.ops.pallas_density import density_pallas_cells
-    from coulomb_gmg_tpu.mesh.forest import Forest
-    from coulomb_gmg_tpu.ops.density import compute_density
-    from coulomb_gmg_tpu.ops.q1 import element_tables
+    """The brute-force separable density in float32 over fixed-size,
+    padded cell chunks (ops/density.py) against density_dense."""
+    from coulomb_gmg.mesh.forest import Forest
+    from coulomb_gmg.ops.density import (compute_density, density_dense,
+                                         cell_quad_points)
+    from coulomb_gmg.ops.q1 import element_tables
 
     f = Forest.uniform(3, 5, np.zeros(3), 0.4)
     tab = element_tables(3, 1, 2)
@@ -173,52 +166,67 @@ def test_pallas_density_cells_matches_compute_density():
     q = rng.choice([-1.0, 1.0], 37)
     r_c = 0.5
 
-    ref = compute_density(f, tab.points, pos, q, r_c)   # jnp separable path
-    got = np.asarray(density_pallas_cells(
-        f.cell_lower(), f.cell_h(), tab.points, pos, q, r_c,
-        p_tile=128, a_tile=128, interpret=True))
-    np.testing.assert_allclose(got, ref, rtol=5e-4, atol=1e-5)
+    ref = np.asarray(density_dense(jnp.asarray(cell_quad_points(
+        f, tab.points)), jnp.asarray(pos), jnp.asarray(q), r_c))
+    got = compute_density(f, tab.points, pos, q, r_c, chunk=48,
+                          dtype=np.float32)
+    assert got.dtype == np.float32 and got.shape == ref.shape
+    np.testing.assert_allclose(got, ref, rtol=5e-4,
+                               atol=1e-5 * np.abs(ref).max())
 
 
 def test_pallas_gradient_matches_reference_formula():
-    from coulomb_gmg_tpu.ops.pallas_gradient import exact_gradient_pallas
-    from coulomb_gmg_tpu.models.problems import analytic_solution_gradient
+    """analytic_solution_gradient (the FE-error exact gradient) against
+    central differences of analytic_solution."""
+    from coulomb_gmg.models.problems import (analytic_solution,
+                                             analytic_solution_gradient)
     rng = np.random.default_rng(6)
     P, A = 300, 41
     pts = rng.uniform(-2, 2, (P, 3))
     pos = rng.uniform(-1, 1, (A, 3))
     q = rng.choice([-1.0, 1.0], A)
     r_c = 0.5
-    ref = np.asarray(analytic_solution_gradient(
+    got = np.asarray(analytic_solution_gradient(
         jnp.asarray(pts), jnp.asarray(pos), jnp.asarray(q), r_c))
-    got = np.asarray(exact_gradient_pallas(pts, pos, q, r_c, p_tile=128,
-                                           a_tile=128, interpret=True))
-    np.testing.assert_allclose(got, ref, rtol=2e-3, atol=2e-4)
+    eps = 1e-5
+    fd = np.empty_like(pts)
+    for d in range(3):
+        e = np.zeros(3)
+        e[d] = eps
+        up = analytic_solution(jnp.asarray(pts + e), jnp.asarray(pos),
+                               jnp.asarray(q), r_c)
+        dn = analytic_solution(jnp.asarray(pts - e), jnp.asarray(pos),
+                               jnp.asarray(q), r_c)
+        fd[:, d] = (np.asarray(up) - np.asarray(dn)) / (2 * eps)
+    np.testing.assert_allclose(got, fd, rtol=1e-6, atol=1e-8)
 
 
 def test_pallas_gradient_zero_at_atom_position():
     """The reference zeroes the (removable) singularity at atom positions
-    (include/step_50.h:355-369); the kernel's guard must reproduce that."""
-    from coulomb_gmg_tpu.ops.pallas_gradient import exact_gradient_pallas
+    (include/step_50.h:355-369); the gradient's guard must reproduce that,
+    in float64 and in the float32 the device path runs."""
+    from coulomb_gmg.models.problems import analytic_solution_gradient
     pos = np.array([[0.5, 0.5, 0.5], [1.0, 1.0, 1.0]])
     q = np.array([1.0, -1.0])
     pts = np.array([[0.5, 0.5, 0.5]])        # exactly ON atom 0
-    g = np.asarray(exact_gradient_pallas(pts, pos, q, 0.4, p_tile=128,
-                                         a_tile=128, interpret=True))
-    assert np.all(np.isfinite(g))
     # only atom 1's (finite) contribution remains
-    from coulomb_gmg_tpu.models.problems import analytic_solution_gradient
     ref = np.asarray(analytic_solution_gradient(
-        jnp.asarray(pts), jnp.asarray(pos), jnp.asarray(q), 0.4))
-    np.testing.assert_allclose(g, ref, rtol=1e-3, atol=1e-5)
+        jnp.asarray(pts), jnp.asarray(pos[1:]), jnp.asarray(q[1:]), 0.4))
+    for dt in (jnp.float64, jnp.float32):
+        g = np.asarray(analytic_solution_gradient(
+            jnp.asarray(pts, dt), jnp.asarray(pos, dt), jnp.asarray(q, dt),
+            0.4))
+        assert np.all(np.isfinite(g))
+        np.testing.assert_allclose(g, ref, rtol=1e-6 if dt == jnp.float32
+                                   else 1e-14)
 
 
 def test_energy_norm_error_f32_matches_f64():
-    """The f32 matmul-gradient path tracks the f64 reference path to
-    single-precision accuracy on a small production-shaped problem."""
-    from coulomb_gmg_tpu.postprocess.energy import energy_norm_error
-    from coulomb_gmg_tpu.mesh.forest import Forest
-    from coulomb_gmg_tpu.ops.q1 import element_tables
+    """The f32 path tracks the f64 reference path to single-precision
+    accuracy on a small production-shaped problem."""
+    from coulomb_gmg.postprocess.energy import energy_norm_error
+    from coulomb_gmg.mesh.forest import Forest
+    from coulomb_gmg.ops.q1 import element_tables
     f = Forest.uniform(3, 6, np.zeros(3), 0.3)
     tab = element_tables(3, 1, 2)
     rng = np.random.default_rng(8)
@@ -230,17 +238,17 @@ def test_energy_norm_error_f32_matches_f64():
     assert abs(e32 - e64) / e64 < 5e-4, (e32, e64)
 
 
-def test_tpu_gmg_sys_ell_delta_ship_matches_full_build():
-    """System-ELL delta shipping: rebuilding TpuGMG from a prev instance
+def test_fused_gmg_sys_ell_delta_ship_matches_full_build():
+    """System-ELL delta shipping: rebuilding FusedGMG from a prev instance
     with a few perturbed rows must (a) take the delta path, shipping only
     the changed rows, and (b) solve identically to a fresh full build."""
     import jax
-    from coulomb_gmg_tpu.config import golden_gaussian_config
-    from coulomb_gmg_tpu.driver import Simulation
-    from coulomb_gmg_tpu.models.atoms import two_atom_pair
-    from coulomb_gmg_tpu.ops.spmv import CSR
-    from coulomb_gmg_tpu.solver.tpu_gmg import TpuGMG
-    from coulomb_gmg_tpu.utils.logging import Pcout
+    from coulomb_gmg.config import golden_gaussian_config
+    from coulomb_gmg.driver import Simulation
+    from coulomb_gmg.models.atoms import two_atom_pair
+    from coulomb_gmg.ops.spmv import CSR
+    from coulomb_gmg.solver.fused_gmg import FusedGMG
+    from coulomb_gmg.utils.logging import Pcout
 
     cfg = golden_gaussian_config(n_adaptive_cycles=1, flag_output_time=False)
     cfg = type(cfg)(**{**cfg.__dict__, "mesh_size_h": 0.5,
@@ -250,7 +258,7 @@ def test_tpu_gmg_sys_ell_delta_ship_matches_full_build():
     dev = jax.devices()[0]          # CPU device object: still "a device"
     rhs = np.asarray(sim.rhs, np.float64)
 
-    prev = TpuGMG(sim.gmg, sim.A, sim.forest, device=dev, dtype=jnp.float64,
+    prev = FusedGMG(sim.gmg, sim.A, sim.forest, device=dev, dtype=jnp.float64,
                   use_dst=True)
     # next-cycle stand-in: same pattern, a few strengthened diagonal rows
     data2 = np.asarray(sim.A.data).copy()
@@ -260,9 +268,9 @@ def test_tpu_gmg_sys_ell_delta_ship_matches_full_build():
     A2 = CSR.from_pattern(sim.A.indptr, sim.A.indices, data2,
                           n_cols=sim.A.n_cols)
 
-    fresh = TpuGMG(sim.gmg, A2, sim.forest, device=dev, dtype=jnp.float64,
+    fresh = FusedGMG(sim.gmg, A2, sim.forest, device=dev, dtype=jnp.float64,
                    use_dst=True)
-    delta = TpuGMG(sim.gmg, A2, sim.forest, device=dev, dtype=jnp.float64,
+    delta = FusedGMG(sim.gmg, A2, sim.forest, device=dev, dtype=jnp.float64,
                    use_dst=True, prev=prev)
     assert delta._sys_delta_rows is not None, "delta path not taken"
     assert 1 <= delta._sys_delta_rows <= len(bump)

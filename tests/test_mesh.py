@@ -7,7 +7,7 @@ and tests/step-16.mpirun=1.output (hyper_cube + refine_global hierarchy
 
 import numpy as np
 
-from coulomb_gmg_tpu.mesh.forest import Forest
+from coulomb_gmg.mesh.forest import Forest
 
 
 def test_uniform_counts_golden_gaussian():

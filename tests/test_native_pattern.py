@@ -5,7 +5,7 @@ assembled matrix matches a brute-force scipy assembly."""
 import numpy as np
 import pytest
 
-from coulomb_gmg_tpu.utils import native
+from coulomb_gmg.utils import native
 
 
 def _ref_pattern(c2d, er, ec, n):
@@ -67,11 +67,11 @@ def test_assembled_matrix_matches_scipy():
     import scipy.sparse as sp
     import jax
     jax.config.update("jax_enable_x64", True)
-    from coulomb_gmg_tpu.mesh.forest import Forest
-    from coulomb_gmg_tpu.fem.constraints import build_constraints
-    from coulomb_gmg_tpu.fem.assembly import build_plan, assemble_np
-    from coulomb_gmg_tpu.fem.integrals import stiffness_cells_np
-    from coulomb_gmg_tpu.ops.q1 import element_tables
+    from coulomb_gmg.mesh.forest import Forest
+    from coulomb_gmg.fem.constraints import build_constraints
+    from coulomb_gmg.fem.assembly import build_plan, assemble_np
+    from coulomb_gmg.fem.integrals import stiffness_cells_np
+    from coulomb_gmg.ops.q1 import element_tables
 
     f0 = Forest.uniform(3, 6, np.zeros(3), 1.0 / 6)
     # refine a corner to create hanging nodes
@@ -118,7 +118,7 @@ def test_scatter_add_matches_bincount():
     equality holds to 1e-12 relative, which the assembly docstring relies
     on)."""
     import numpy as np
-    from coulomb_gmg_tpu.utils import native
+    from coulomb_gmg.utils import native
 
     rng = np.random.default_rng(7)
     for n in (1 << 10, (1 << 18) + 123):
@@ -135,7 +135,7 @@ def test_scatter_add_matches_bincount():
 
 def test_gather_blocks_matches_fancy_indexing():
     import numpy as np
-    from coulomb_gmg_tpu.utils import native
+    from coulomb_gmg.utils import native
 
     rng = np.random.default_rng(8)
     src = rng.standard_normal((40000, 8, 8))      # above the 1<<20 gate
@@ -148,7 +148,7 @@ def test_gather_blocks_matches_fancy_indexing():
 
 def test_gather_rows_any_dtype():
     import numpy as np
-    from coulomb_gmg_tpu.utils import native
+    from coulomb_gmg.utils import native
 
     rng = np.random.default_rng(9)
     for dtype, shape in ((np.int32, (300000, 8)), (bool, (200000, 16)),
@@ -163,7 +163,7 @@ def test_gather_rows_any_dtype():
 def test_csr_to_ell_matches_from_coo():
     import numpy as np
     import scipy.sparse as sp
-    from coulomb_gmg_tpu.ops.ell import ELL
+    from coulomb_gmg.ops.ell import ELL
 
     rng = np.random.default_rng(11)
     for n, dt in ((2000, np.float64), (300000, np.float32)):

@@ -25,10 +25,10 @@ import pytest
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
-from coulomb_gmg_tpu.config import production_scaling_config
-from coulomb_gmg_tpu.driver import Simulation
-from coulomb_gmg_tpu.models.atoms import nacl_lattice
-from coulomb_gmg_tpu.utils.logging import Pcout
+from coulomb_gmg.config import production_scaling_config
+from coulomb_gmg.driver import Simulation
+from coulomb_gmg.models.atoms import nacl_lattice
+from coulomb_gmg.utils.logging import Pcout
 
 # Plotting/ncells_per_atom.dat:6-12 — per-cycle active cells, coarse + 4
 # adaptive cycles, for the whole published NaCl series.

@@ -14,13 +14,13 @@ import pytest
 
 jnp = pytest.importorskip("jax.numpy")
 
-from coulomb_gmg_tpu.mesh.forest import Forest, node_offsets
-from coulomb_gmg_tpu.fem.constraints import build_constraints, distribute
-from coulomb_gmg_tpu.fem.assembly import build_plan, assemble_np
-from coulomb_gmg_tpu.fem.integrals import stiffness_cells_np, rhs_cells_np
-from coulomb_gmg_tpu.ops.q1 import element_tables, lap_basis_at
-from coulomb_gmg_tpu.ops.spmv import CSR
-from coulomb_gmg_tpu.solver.cg import cg
+from coulomb_gmg.mesh.forest import Forest, node_offsets
+from coulomb_gmg.fem.constraints import build_constraints, distribute
+from coulomb_gmg.fem.assembly import build_plan, assemble_np
+from coulomb_gmg.fem.integrals import stiffness_cells_np, rhs_cells_np
+from coulomb_gmg.ops.q1 import element_tables, lap_basis_at
+from coulomb_gmg.ops.spmv import CSR
+from coulomb_gmg.solver.cg import cg
 
 
 def _exact(dim):
@@ -135,7 +135,7 @@ def test_q1_unchanged_by_generalization():
 def test_gmg_qp_prolongation():
     """Generic Q2 prolongation: a tensor-quadratic coarse-level function
     prolongates exactly to the fine level."""
-    from coulomb_gmg_tpu.solver.multigrid import build_prolongation
+    from coulomb_gmg.solver.multigrid import build_prolongation
     dim, degree = 2, 2
     forest = Forest.hyper_cube(dim, 0.0, 1.0, 2)
     dofs = forest.dofs_of(degree)
@@ -145,7 +145,7 @@ def test_gmg_qp_prolongation():
     pos_f = forest.node_position(forest.nkey_to_coords(lf.keys, degree), degree)
     g = lambda p: (1 + p[:, 0] + 3 * p[:, 0] ** 2) * (2 - p[:, 1] ** 2)
     coarse = jnp.asarray(g(pos_c))
-    from coulomb_gmg_tpu.ops.spmv import csr_matvec
+    from coulomb_gmg.ops.spmv import csr_matvec
     fine = np.asarray(csr_matvec(P.rowids, P.indices, P.data, coarse,
                                  P.n_rows))
     assert np.abs(fine - g(pos_f)).max() < 1e-10
@@ -153,9 +153,9 @@ def test_gmg_qp_prolongation():
 
 def test_step16_driver_degree2_smoke():
     """Driver end-to-end with Polynomial degree = 2 (Step16 2D, 2 cycles)."""
-    from coulomb_gmg_tpu.config import Config
-    from coulomb_gmg_tpu.driver import Simulation
-    from coulomb_gmg_tpu.utils.logging import Pcout
+    from coulomb_gmg.config import Config
+    from coulomb_gmg.driver import Simulation
+    from coulomb_gmg.utils.logging import Pcout
     cfg = Config(problem="Step16", dim=2, degree=2, n_global_refinements=2,
                  n_adaptive_cycles=2, preconditioner="GMG",
                  boundary_conditions="Homogeneous", flag_output_time=False)

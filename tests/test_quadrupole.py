@@ -6,10 +6,10 @@ it zeroes the integral right after computing it (src/step-50.cc:624)."""
 
 import numpy as np
 
-from coulomb_gmg_tpu.config import Config
-from coulomb_gmg_tpu.driver import Simulation
-from coulomb_gmg_tpu.io.lammps import AtomData
-from coulomb_gmg_tpu.utils.logging import Pcout
+from coulomb_gmg.config import Config
+from coulomb_gmg.driver import Simulation
+from coulomb_gmg.io.lammps import AtomData
+from coulomb_gmg.utils.logging import Pcout
 
 
 def _atoms_with_quadrupole():

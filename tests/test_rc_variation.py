@@ -14,13 +14,13 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from coulomb_gmg_tpu.mesh.forest import Forest
-from coulomb_gmg_tpu.ops.q1 import element_tables
-from coulomb_gmg_tpu.ops.density import atom_masks, compute_density
-from coulomb_gmg_tpu.fem.constraints import build_constraints
-from coulomb_gmg_tpu.fem.assembly import build_plan, assemble
-from coulomb_gmg_tpu.fem.integrals import stiffness_cells, rhs_cells
-from coulomb_gmg_tpu.models.atoms import two_atom_pair
+from coulomb_gmg.mesh.forest import Forest
+from coulomb_gmg.ops.q1 import element_tables
+from coulomb_gmg.ops.density import atom_masks, compute_density
+from coulomb_gmg.fem.constraints import build_constraints
+from coulomb_gmg.fem.assembly import build_plan, assemble
+from coulomb_gmg.fem.integrals import stiffness_cells, rhs_cells
+from coulomb_gmg.models.atoms import two_atom_pair
 
 R_C = 0.5
 

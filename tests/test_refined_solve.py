@@ -19,10 +19,10 @@ import scipy.sparse as sp
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
-from coulomb_gmg_tpu.config import production_scaling_config
-from coulomb_gmg_tpu.driver import Simulation
-from coulomb_gmg_tpu.models.atoms import nacl_lattice
-from coulomb_gmg_tpu.utils.logging import Pcout
+from coulomb_gmg.config import production_scaling_config
+from coulomb_gmg.driver import Simulation
+from coulomb_gmg.models.atoms import nacl_lattice
+from coulomb_gmg.utils.logging import Pcout
 
 
 def _true_relative_residual(sim):
@@ -39,7 +39,7 @@ def _true_relative_residual(sim):
 
 def _run(rtol, dtype="float32"):
     cfg = production_scaling_config(1, dtype=dtype, cg_rtol=rtol,
-                                    solver_backend="tpu_cg",
+                                    solver_backend="bucketed_cg",
                                     n_adaptive_cycles=2)
     sim = Simulation(cfg, atoms=nacl_lattice(1), pcout=Pcout(enabled=False))
     results = sim.run()

@@ -10,10 +10,10 @@ import pytest
 import jax
 from jax.sharding import Mesh
 
-from coulomb_gmg_tpu.config import golden_gaussian_config
-from coulomb_gmg_tpu.driver import Simulation
-from coulomb_gmg_tpu.models.atoms import two_atom_pair
-from coulomb_gmg_tpu.utils.logging import Pcout
+from coulomb_gmg.config import golden_gaussian_config
+from coulomb_gmg.driver import Simulation
+from coulomb_gmg.models.atoms import two_atom_pair
+from coulomb_gmg.utils.logging import Pcout
 
 
 @pytest.fixture(scope="module")
@@ -29,7 +29,7 @@ def small_sim():
 
 
 def test_sharded_solution_matches_single_device(small_sim):
-    from coulomb_gmg_tpu.parallel.sharded_gmg import ShardedGMG
+    from coulomb_gmg.parallel.sharded_gmg import ShardedGMG
 
     sim = small_sim
     devs = jax.devices()
@@ -49,7 +49,7 @@ def test_sharded_solution_matches_single_device(small_sim):
     assert res_sh <= 1e-8 * bnorm * 1.01
     assert 1 <= k_sh <= 20
     # both solves converged to 1e-8||b||: solutions agree to ~that level
-    from coulomb_gmg_tpu.fem.constraints import distribute
+    from coulomb_gmg.fem.constraints import distribute
     x_sh_d = distribute(sim.constraints, x_sh)
     num = np.linalg.norm(np.asarray(x_sh_d) - x_ref)
     den = np.linalg.norm(x_ref)
@@ -62,7 +62,7 @@ def test_sharded_iteration_count_device_invariant(small_sim):
     reference's deliberately non-power-of-2 mpirun=3/7 golden files
     (tests/CMakeLists.txt:1-7) — they stress the uneven block padding in
     _block_coo/_block_pairs."""
-    from coulomb_gmg_tpu.parallel.sharded_gmg import ShardedGMG
+    from coulomb_gmg.parallel.sharded_gmg import ShardedGMG
 
     sim = small_sim
     devs = jax.devices()
@@ -87,7 +87,7 @@ def test_halo_ghost_import_matches_allgather(small_sim):
     """Owned/ghost halo exchange (HaloPlan all_to_all, the IndexSet ghost
     import of src/step-50.cc:722-731) vs whole-vector all_gather: identical
     math -> identical iteration counts and solutions."""
-    from coulomb_gmg_tpu.parallel.sharded_gmg import ShardedGMG
+    from coulomb_gmg.parallel.sharded_gmg import ShardedGMG
 
     sim = small_sim
     devs = jax.devices()

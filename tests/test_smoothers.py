@@ -8,8 +8,8 @@ import numpy as np
 import pytest
 import jax.numpy as jnp
 
-from coulomb_gmg_tpu.ops.spmv import CSR
-from coulomb_gmg_tpu.ops.smoothers import make_mc_ssor
+from coulomb_gmg.ops.spmv import CSR
+from coulomb_gmg.ops.smoothers import make_mc_ssor
 
 
 def _poisson_csr(m: int, dim: int = 3):
@@ -81,10 +81,10 @@ def test_mc_ssor_gmg_iteration_parity():
     """mc_ssor-smoothed production pipeline vs the exact-SSOR oracle: CG
     counts within +-2 on the small gaussian problem (the reference's own
     counts drift across rank layouts the same way, SURVEY section 4)."""
-    from coulomb_gmg_tpu.config import golden_gaussian_config
-    from coulomb_gmg_tpu.driver import Simulation
-    from coulomb_gmg_tpu.models.atoms import two_atom_pair
-    from coulomb_gmg_tpu.utils.logging import Pcout
+    from coulomb_gmg.config import golden_gaussian_config
+    from coulomb_gmg.driver import Simulation
+    from coulomb_gmg.models.atoms import two_atom_pair
+    from coulomb_gmg.utils.logging import Pcout
 
     res = {}
     for sm in ("ssor", "mc_ssor"):
@@ -105,9 +105,9 @@ def test_gmg_level_cache_survives_max_level_growth():
     refinement that deepens the tree, unchanged levels reuse their cached
     operators, and the reused operators EQUAL a from-scratch rebuild."""
     import jax.numpy as jnp
-    from coulomb_gmg_tpu.mesh.forest import Forest
-    from coulomb_gmg_tpu.ops.q1 import element_tables
-    from coulomb_gmg_tpu.solver.multigrid import build_gmg
+    from coulomb_gmg.mesh.forest import Forest
+    from coulomb_gmg.ops.q1 import element_tables
+    from coulomb_gmg.solver.multigrid import build_gmg
 
     f0 = Forest.uniform(3, 4, np.zeros(3), 0.25)
     tab = element_tables(3, 1, 2)

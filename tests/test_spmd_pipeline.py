@@ -21,10 +21,10 @@ import pytest
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 from golden import parse_golden, GOLDEN_GAUSSIAN
 
-from coulomb_gmg_tpu.config import golden_gaussian_config
-from coulomb_gmg_tpu.driver import Simulation
-from coulomb_gmg_tpu.models.atoms import two_atom_pair
-from coulomb_gmg_tpu.utils.logging import Pcout
+from coulomb_gmg.config import golden_gaussian_config
+from coulomb_gmg.driver import Simulation
+from coulomb_gmg.models.atoms import two_atom_pair
+from coulomb_gmg.utils.logging import Pcout
 
 N_CYCLES = int(os.environ.get("SPMD_CYCLES", "3"))
 

@@ -12,10 +12,10 @@ import os
 
 import pytest
 
-from coulomb_gmg_tpu.config import production_scaling_config
-from coulomb_gmg_tpu.driver import Simulation
-from coulomb_gmg_tpu.models.atoms import nacl_lattice
-from coulomb_gmg_tpu.utils.logging import Pcout
+from coulomb_gmg.config import production_scaling_config
+from coulomb_gmg.driver import Simulation
+from coulomb_gmg.models.atoms import nacl_lattice
+from coulomb_gmg.utils.logging import Pcout
 
 N_CYCLES = int(os.environ.get("SPMD_PROD_CYCLES", "3"))
 

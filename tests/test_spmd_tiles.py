@@ -8,11 +8,11 @@ import numpy as np
 import pytest
 import jax
 
-from coulomb_gmg_tpu.mesh.forest import Forest
-from coulomb_gmg_tpu.models.atoms import nacl_lattice
-from coulomb_gmg_tpu.ops.q1 import element_tables
-from coulomb_gmg_tpu.ops.tile_density import density_locality_tiles
-from coulomb_gmg_tpu.parallel.spmd import SpmdContext
+from coulomb_gmg.mesh.forest import Forest
+from coulomb_gmg.models.atoms import nacl_lattice
+from coulomb_gmg.ops.q1 import element_tables
+from coulomb_gmg.ops.tile_density import density_locality_tiles
+from coulomb_gmg.parallel.spmd import SpmdContext
 
 R_C = 0.5
 CUT = 3.5 * R_C
@@ -32,10 +32,10 @@ def test_spmd_tiles_bit_identical(D):
         pytest.skip("needs virtual devices")
     f, atoms, tab = _setup()
     ref = density_locality_tiles(f, tab.points, atoms.positions,
-                                 atoms.charges, R_C, CUT, interpret=True)
+                                 atoms.charges, R_C, CUT)
     spmd = SpmdContext(D)
     got = spmd.density_tiles(f, tab.points, atoms.positions, atoms.charges,
-                             R_C, CUT, interpret=True)
+                             R_C, CUT)
     assert got.shape == ref.shape
     np.testing.assert_array_equal(got, ref)
 
@@ -47,10 +47,10 @@ def test_spmd_tiles_after_refinement():
     flags = rng.random(f.n_cells) < 0.02
     f2 = f.refine(flags)
     ref = density_locality_tiles(f2, tab.points, atoms.positions,
-                                 atoms.charges, R_C, CUT, interpret=True)
+                                 atoms.charges, R_C, CUT)
     spmd = SpmdContext(8)
     got = spmd.density_tiles(f2, tab.points, atoms.positions,
-                             atoms.charges, R_C, CUT, interpret=True)
+                             atoms.charges, R_C, CUT)
     np.testing.assert_array_equal(got, ref)
 
 
@@ -60,7 +60,7 @@ def test_spmd_estimator_matches_host(D):
     coarse-fine subfaces across refinement edges (VERDICT r4 #8)."""
     if len(jax.devices()) < D:
         pytest.skip("needs virtual devices")
-    from coulomb_gmg_tpu.adapt.estimator import estimate, build_face_plan
+    from coulomb_gmg.adapt.estimator import estimate, build_face_plan
     f, atoms, tab = _setup()
     rng = np.random.default_rng(3)
     f2 = f.refine(rng.random(f.n_cells) < 0.01)

@@ -12,12 +12,12 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from coulomb_gmg_tpu.mesh.forest import Forest
-from coulomb_gmg_tpu.ops.q1 import element_tables
-from coulomb_gmg_tpu.ops.stencil import (
+from coulomb_gmg.mesh.forest import Forest
+from coulomb_gmg.ops.q1 import element_tables
+from coulomb_gmg.ops.stencil import (
     stencil_table, level_topology, build_level_ops, build_prolongation_ops,
     offset3)
-from coulomb_gmg_tpu.solver.multigrid import build_gmg
+from coulomb_gmg.solver.multigrid import build_gmg
 
 
 def _adaptive_forest(dim, reps=6, cycles=2, seed=0):

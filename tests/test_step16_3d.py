@@ -26,10 +26,10 @@ import os
 import numpy as np
 import pytest
 
-from coulomb_gmg_tpu.config import Config
-from coulomb_gmg_tpu.driver import Simulation
-from coulomb_gmg_tpu.io.lammps import read_lammps_file
-from coulomb_gmg_tpu.utils.logging import Pcout
+from coulomb_gmg.config import Config
+from coulomb_gmg.driver import Simulation
+from coulomb_gmg.io.lammps import read_lammps_file
+from coulomb_gmg.utils.logging import Pcout
 
 N_CYCLES = int(os.environ.get("STEP16_CYCLES", "3"))
 

@@ -5,8 +5,8 @@ interpolation exactness."""
 
 import numpy as np
 
-from coulomb_gmg_tpu.mesh.forest import Forest
-from coulomb_gmg_tpu.adapt.transfer import (
+from coulomb_gmg.mesh.forest import Forest
+from coulomb_gmg.adapt.transfer import (
     old_cell_of_new, transfer_solution, transfer_cell_mask)
 
 

@@ -7,9 +7,9 @@ import xml.etree.ElementTree as ET
 
 import numpy as np
 
-from coulomb_gmg_tpu.mesh.forest import Forest
-from coulomb_gmg_tpu.io.vtu import (write_vtu, write_pvtu,
-                                    write_visit_record, nodal_gradient)
+from coulomb_gmg.mesh.forest import Forest
+from coulomb_gmg.io.vtu import (write_vtu, write_pvtu,
+                                write_visit_record, nodal_gradient)
 
 
 def test_vtu_roundtrip(tmp_path):

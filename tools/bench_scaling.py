@@ -13,7 +13,7 @@ locality optimization ON, 20 MPI ranks of a 40-core node):
    8000     1,990   s       69,839 s
   64000    20,540   s  (5 nodes; SSOR_64k_atoms.o876224)
 
-Usage: python tools/bench_scaling.py [--sizes 1,3,5] [--cycles 5] [--tpu]
+Usage: python tools/bench_scaling.py [--sizes 1,3,5] [--cycles 5] [--gpu]
 Prints one JSON line per size:
   {"atoms": N, "wall_s": T, "ref_debug_s": R, "speedup": R/T, ...}
 """
@@ -35,8 +35,8 @@ def main():
     ap.add_argument("--sizes", default="1,3",
                     help="comma list of n (atoms = 8 n^3)")
     ap.add_argument("--cycles", type=int, default=5)
-    ap.add_argument("--tpu", action="store_true",
-                    help="allow the accelerator backend (default: host)")
+    ap.add_argument("--gpu", action="store_true",
+                    help="allow the GPU backend (default: host)")
     ap.add_argument("--timers", action="store_true",
                     help="print the per-stage walltime table after each size")
     ap.add_argument("--verbose", action="store_true",
@@ -52,22 +52,22 @@ def main():
                     "with --production on host)")
     args = ap.parse_args()
 
-    if not args.tpu:
+    if not args.gpu:
         import jax
         jax.config.update("jax_platforms", "cpu")
     import jax
-    if (args.dtype or ("float64" if args.production and not args.tpu
+    if (args.dtype or ("float64" if args.production and not args.gpu
                        else "float32")) == "float64":
         jax.config.update("jax_enable_x64", True)
     import jax.numpy as jnp
     jax.jit(lambda x: (x @ x).sum())(
         jnp.ones((512, 512), jnp.float32)).block_until_ready()
 
-    from coulomb_gmg_tpu.config import (golden_gaussian_config,
-                                        production_scaling_config)
-    from coulomb_gmg_tpu.driver import Simulation
-    from coulomb_gmg_tpu.models.atoms import nacl_lattice
-    from coulomb_gmg_tpu.utils.logging import Pcout
+    from coulomb_gmg.config import (golden_gaussian_config,
+                                    production_scaling_config)
+    from coulomb_gmg.driver import Simulation
+    from coulomb_gmg.models.atoms import nacl_lattice
+    from coulomb_gmg.utils.logging import Pcout
 
     # Plotting/ncells_per_atom.dat:6-12 — the published per-cycle cells
     ref_cells = {
@@ -86,15 +86,15 @@ def main():
             # no FE-error postprocess, reference tolerance 1e-8
             cfg = production_scaling_config(
                 n, n_adaptive_cycles=args.cycles,
-                dtype=args.dtype or ("float32" if args.tpu else "float64"),
-                solver_backend="tpu_cg",
+                dtype=args.dtype or ("float32" if args.gpu else "float64"),
+                solver_backend="bucketed_cg",
             )
         else:
             cfg = golden_gaussian_config(
                 n_adaptive_cycles=args.cycles,
                 domain_left=0.0, domain_right=float(n),
                 dtype=args.dtype or "float32",
-                solver_backend="tpu_cg", cg_rtol=1e-6,
+                solver_backend="bucketed_cg", cg_rtol=1e-6,
                 boundary_conditions="Exact" if atoms.n < 2000
                 else "Inhomogeneous",
                 flag_output_time=False,

@@ -40,15 +40,15 @@ def main():
     dev = jax.devices()[0]
     print(f"platform: {dev.platform}", flush=True)
 
-    from coulomb_gmg_tpu.config import production_scaling_config
-    from coulomb_gmg_tpu.driver import Simulation
-    from coulomb_gmg_tpu.models.atoms import nacl_lattice
-    from coulomb_gmg_tpu.utils.logging import Pcout
-    from coulomb_gmg_tpu.solver.device_gmg import StencilGMG
-    from coulomb_gmg_tpu.solver.tpu_gmg import cellwise_mv, _coarse_apply
+    from coulomb_gmg.config import production_scaling_config
+    from coulomb_gmg.driver import Simulation
+    from coulomb_gmg.models.atoms import nacl_lattice
+    from coulomb_gmg.utils.logging import Pcout
+    from coulomb_gmg.solver.device_gmg import StencilGMG
+    from coulomb_gmg.solver.fused_gmg import cellwise_mv, _coarse_apply
 
     cfg = production_scaling_config(args.n, dtype="float32",
-                                    solver_backend="tpu_cg",
+                                    solver_backend="bucketed_cg",
                                     n_adaptive_cycles=1,
                                     device_operators="on")
     t0 = time.time()

@@ -16,10 +16,10 @@ import numpy as np
 
 
 def main(n: int = 10):
-    from coulomb_gmg_tpu.config import production_scaling_config
-    from coulomb_gmg_tpu.driver import Simulation
-    from coulomb_gmg_tpu.models.atoms import nacl_lattice
-    from coulomb_gmg_tpu.utils.logging import Pcout
+    from coulomb_gmg.config import production_scaling_config
+    from coulomb_gmg.driver import Simulation
+    from coulomb_gmg.models.atoms import nacl_lattice
+    from coulomb_gmg.utils.logging import Pcout
 
     cfg = production_scaling_config(n, dtype="float64")
     atoms = nacl_lattice(n)
@@ -39,10 +39,10 @@ def main(n: int = 10):
         return out
 
     # ---- build_dofs internals, cold
-    from coulomb_gmg_tpu.mesh.dofs import (_cell_node_keys, _find_hanging,
-                                           _build_level, build_dofs)
-    from coulomb_gmg_tpu.mesh.forest import KeyIndex
-    from coulomb_gmg_tpu.utils import native
+    from coulomb_gmg.mesh.dofs import (_cell_node_keys, _find_hanging,
+                                       _build_level, build_dofs)
+    from coulomb_gmg.mesh.forest import KeyIndex
+    from coulomb_gmg.utils import native
 
     p = cfg.degree
     ckeys = t("  _cell_node_keys", lambda: _cell_node_keys(f, p))
@@ -60,8 +60,8 @@ def main(n: int = 10):
              lambda: build_dofs(f, p))
 
     # ---- constraints + plan
-    from coulomb_gmg_tpu.fem.constraints import build_constraints
-    from coulomb_gmg_tpu.fem.assembly import build_plan, _expand_entries
+    from coulomb_gmg.fem.constraints import build_constraints
+    from coulomb_gmg.fem.assembly import build_plan, _expand_entries
 
     cons = t("build_constraints", lambda: build_constraints(
         dofs, sim.boundary_fn()))

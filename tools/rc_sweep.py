@@ -37,13 +37,13 @@ def main():
     jax.config.update("jax_enable_x64", True)
     import numpy as np
     import jax.numpy as jnp
-    from coulomb_gmg_tpu.mesh.forest import Forest
-    from coulomb_gmg_tpu.ops.q1 import element_tables
-    from coulomb_gmg_tpu.ops.density import atom_masks, compute_density
-    from coulomb_gmg_tpu.fem.constraints import build_constraints
-    from coulomb_gmg_tpu.fem.assembly import build_plan, assemble_np
-    from coulomb_gmg_tpu.fem.integrals import stiffness_cells_np, rhs_cells_np
-    from coulomb_gmg_tpu.models.atoms import two_atom_pair
+    from coulomb_gmg.mesh.forest import Forest
+    from coulomb_gmg.ops.q1 import element_tables
+    from coulomb_gmg.ops.density import atom_masks, compute_density
+    from coulomb_gmg.fem.constraints import build_constraints
+    from coulomb_gmg.fem.assembly import build_plan, assemble_np
+    from coulomb_gmg.fem.integrals import stiffness_cells_np, rhs_cells_np
+    from coulomb_gmg.models.atoms import two_atom_pair
 
     atoms = two_atom_pair()
     f = Forest.uniform(3, args.reps, np.full(3, -2.0), 5.0 / args.reps)
